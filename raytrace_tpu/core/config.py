@@ -81,35 +81,22 @@ class RenderConfig:
     # -- photon hash grid --------------------------------------------------
     grid_max_photons_per_cell: int = 32  # static per-cell budget (masked)
     exact_gather: bool = False        # True: exact streamed all-pairs gather
-    # rowspan-gather capacity knobs (ADVICE r3: were hard-wired in the
-    # renderer). 0 = derive from the photon-map size: rounds scales the
-    # SMEM-bounded per-round job list (2^17 jobs each) with the map,
-    # clamped to [4, 16]; r_max is the per-tile (z, y)-row budget.
-    gather_rounds: int = 0
-    gather_r_max: int = 64
-    gather_job_budget: int = 0        # per-round rowspan job capacity; 0 =
-                                      # the SMEM-bound default 2^17. Tests
-                                      # shrink it to force (now unbiased)
-                                      # overflow at small scale
                                       # (photon_grid.gather_radius_dense) —
                                       # no per-cell truncation; the oracle
                                       # setting for parity tests and small
                                       # scenes. False: fast spatial paths
+    # row-span gather job capacity = gather_job_budget × gather_rounds jobs
+    # (one (query tile, photon chunk) block each). 0 = derive from the
+    # photon-map size: 2^17 jobs × rounds scaled with the map, clamped to
+    # [4, 16]. Tests shrink the budget to force (unbiased) overflow at
+    # small scale. r_max is the per-tile (z, y)-row span budget.
+    gather_rounds: int = 0
+    gather_r_max: int = 64
+    gather_job_budget: int = 0
 
     # -- intersection -------------------------------------------------------
     use_bvh: bool = False             # brute-force is faster for tiny scenes
     ray_chunk: int = 0                # if >0, process rays in chunks this size
-    intersect_rounds: int = 1         # cluster-intersector pair capacity =
-                                      # rounds × 2^17 (SMEM caps one round);
-                                      # raise for huge scenes with incoherent
-                                      # rays so truncated pairs (clean
-                                      # misses, counted) stay at zero
-    intersect_budget_scale: float = 1.0  # epoch-engine pair/subpair budget
-                                      # multiplier (epoch_intersect._budgets)
-                                      # — the documented remediation when
-                                      # aux pair_overflow > 0 under the
-                                      # epoch engine (ADVICE r4: was
-                                      # unreachable from a renderer config)
 
     # -- wavefront compaction ----------------------------------------------
     # After the first full-batch bounce, the specular-chain and photon walks

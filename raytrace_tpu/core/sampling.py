@@ -12,7 +12,7 @@ reference clones from pbrt:
                                      reference as bRandom2D, pbrtcamera.cpp:78-109)
 
 The CUDA versions branch per thread; these are jnp.where ladders so the whole
-wavefront stays on the VPU.
+wavefront stays branch-free elementwise work.
 """
 from __future__ import annotations
 

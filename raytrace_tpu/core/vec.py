@@ -2,8 +2,8 @@
 
 The reference carries its vector math in OptiX float3 helpers and pbrt types
 (reference: cuda_render/util/util.cu.h, util/util.cpp). Here every op is a
-pure function over stacked arrays so it vmaps/shards/differentiates freely —
-the TPU-native replacement for per-thread float3 arithmetic.
+pure function over stacked arrays so it vmaps/shards/differentiates freely, in
+place of per-thread float3 arithmetic.
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ def absdot(a: Array, b: Array) -> Array:
 
 
 def cross(a: Array, b: Array) -> Array:
-    # Hand-rolled instead of jnp.cross: keeps everything in fused VPU ops and
-    # avoids jnp.cross's generalized moveaxis machinery.
+    # Hand-rolled instead of jnp.cross: keeps everything in fused
+    # elementwise ops and avoids jnp.cross's generalized moveaxis machinery.
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
     return jnp.stack(
@@ -93,20 +93,23 @@ def coordinate_system(v1: Array) -> tuple[Array, Array]:
     return v2, cross(v1, v2)
 
 
+# The transforms below are broadcast-multiply-sums rather than einsums: a
+# float32 dot on the GPU may run in TF32 (~3 significant digits), which is
+# enough error in a ray origin to exceed scene_epsilon. These stay exact f32
+# and fuse with their neighbours.
+
 def transform_point(m: Array, p: Array) -> Array:
     """Apply `[..., 3, 4]` affine transform rows to `[..., 3]` points."""
-    return (
-        jnp.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
-    )
+    return transform_vector(m, p) + m[..., :3, 3]
 
 
 def transform_vector(m: Array, v: Array) -> Array:
     """Apply the linear part of a `[..., 3, 4]` affine transform to vectors."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v)
+    return jnp.sum(m[..., :3, :3] * v[..., None, :], axis=-1)
 
 
 def transform_normal(m_inv: Array, n: Array) -> Array:
     """Transform a normal with the inverse-transpose: given w2o (the inverse of
     o2w), normals map by (w2o)^T (pbrt convention; the reference leans on
     OptiX's rtTransformNormal for the same)."""
-    return jnp.einsum("...ji,...j->...i", m_inv[..., :3, :3], n)
+    return jnp.sum(m_inv[..., :3, :3] * n[..., :, None], axis=-2)

@@ -51,9 +51,11 @@ def project_to_raster(camera: PerspectiveCamera, p: Array) -> Array:
     c2w = camera.camera_to_world  # [3, 4] affine
     r = c2w[:, :3]
     t = c2w[:, 3]
-    p_cam = (p - t) @ r  # R^T (p - t): world → camera
+    # broadcast-multiply-sums keep these exact f32 (a GPU dot may use TF32)
+    p_cam = jnp.sum((p - t)[:, :, None] * r[None], axis=1)  # R^T (p - t)
     c2r = jnp.linalg.inv(camera.raster_to_camera)
-    ph = jnp.concatenate([p_cam, jnp.ones_like(p_cam[:, :1])], axis=-1) @ c2r.T
+    ph = jnp.concatenate([p_cam, jnp.ones_like(p_cam[:, :1])], axis=-1)
+    ph = jnp.sum(ph[:, None, :] * c2r[None], axis=-1)
     return ph[:, :2] / ph[:, 3:4]
 
 
@@ -658,8 +660,8 @@ def jacobian_loss_and_grad(
     )
     thetas = jnp.asarray(thetas, jnp.float32)
     vel_fields = jnp.asarray(vel_fields, jnp.float32)  # [D, Vn, 3]
-    verts = jnp.asarray(base_verts, jnp.float32) + jnp.einsum(
-        "d,dvk->vk", thetas, vel_fields)
+    verts = jnp.asarray(base_verts, jnp.float32) + jnp.sum(
+        thetas[:, None, None] * vel_fields, axis=0)
     scene = build_scene(verts)
     img = render(scene, camera, config, key, jitter)
     loss = jnp.mean((img - target) ** 2)

@@ -19,12 +19,12 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
 from jax import Array
 
+from raytrace_tpu.core import struct
 from raytrace_tpu.core.config import RenderConfig
 from raytrace_tpu.diff.render import SceneParams, render_image_from_params
 from raytrace_tpu.renderers import common
@@ -34,7 +34,7 @@ from raytrace_tpu.scene.scene import Scene
 _EPS = 1e-6
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class TransformedParams:
     """Unconstrained reparameterization of SceneParams."""
     kd_logit: Array       # kd = sigmoid(kd_logit) ∈ (0, 1)

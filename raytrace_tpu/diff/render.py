@@ -23,18 +23,18 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 from jax import Array
 
+from raytrace_tpu.core import struct
 from raytrace_tpu.core.config import RenderConfig
 from raytrace_tpu.renderers import photon as photon_renderer
 from raytrace_tpu.scene.camera import PerspectiveCamera
 from raytrace_tpu.scene.scene import Scene
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SceneParams:
     """The differentiable knobs (BASELINE config[3]: albedo + emitter power)."""
     kd: Array  # [M, 3] matte albedo / mirror Kr

@@ -3,22 +3,19 @@ the scaling-efficiency report.
 
 The reference is strictly single-GPU/single-process (SURVEY.md §2.6/§5.8);
 BASELINE's north star is ≥80% rays/s scaling efficiency at 2 hosts. The
-TPU-native structure:
+structure:
 
   - `jax.distributed.initialize` once per process (gated + idempotent here);
-  - a hierarchical ('hosts', 'chips') mesh built with
-    `mesh_utils.create_hybrid_device_mesh` so collectives along 'chips' ride
-    ICI and only the 'hosts' axis touches DCN;
-  - photon waves: each chip traces a disjoint global path-id slice
-    (parallel/sharded.py), then the photon map is all-gathered in two hops —
-    within-host (ICI) first, across hosts (DCN) second — which is exactly
-    what an all_gather over both mesh axes lowers to;
+  - a ('hosts', 'chips') mesh whose inner axis holds one process's devices
+    and whose outer axis crosses processes;
+  - photon waves: each device traces a disjoint global path-id slice
+    (parallel/sharded.py), then the photon map is all-gathered over both
+    mesh axes, the process-local axis first;
   - the pixel-sample axis shards over the flattened mesh; parameter
     gradients psum over it in the backward sweep.
 
-On this machine only one real TPU chip (or N virtual CPU devices) exists, so
-`scaling_report` measures what it can: per-device-count throughput over the
-same total workload, normalized into an efficiency figure.
+`scaling_report` measures per-device-count throughput over the same total
+workload, normalized into an efficiency figure.
 """
 from __future__ import annotations
 
@@ -40,7 +37,7 @@ def initialize_distributed(
     """Initialize jax.distributed for multi-host runs. Reads the standard
     env vars (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID)
     when args are omitted; silently a no-op for single-process runs (so the
-    same entry point works on a laptop, one host, or a pod slice).
+    same entry point works on a laptop, one host, or several hosts).
     Returns True when a multi-process runtime was initialized."""
     global _initialized
     if _initialized:
@@ -64,8 +61,8 @@ def initialize_distributed(
 
 
 def make_hierarchical_mesh(devices=None) -> Mesh:
-    """('hosts', 'chips') mesh: the inner axis stays within a process/host
-    (ICI), the outer axis crosses hosts (DCN). Single-host: hosts axis = 1."""
+    """('hosts', 'chips') mesh: the inner axis stays within a process/host,
+    the outer axis crosses processes. Single-process: hosts axis = 1."""
     devices = list(devices if devices is not None else jax.devices())
     n_proc = max(1, jax.process_count())
     if len(devices) % n_proc != 0:
@@ -75,21 +72,10 @@ def make_hierarchical_mesh(devices=None) -> Mesh:
         return Mesh(np.asarray(devices).reshape(1, len(devices)),
                     ("hosts", "chips"))
     per_host = len(devices) // n_proc
-    n_slices = len({getattr(d, "slice_index", 0) for d in devices})
-    if n_proc > 1 and n_slices == n_proc:
-        # real TPU pod slices: let mesh_utils pick the DCN-aware layout
-        from jax.experimental import mesh_utils
-
-        dm = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=(1, per_host),
-            dcn_mesh_shape=(n_proc, 1),
-            devices=devices,
-        )
-    else:
-        # CPU multi-process (no slice_index) or single process: group the
-        # 'hosts' axis by owning process so the inner axis stays process-local
-        devices = sorted(devices, key=lambda d: (d.process_index, d.id))
-        dm = np.asarray(devices).reshape(n_proc, per_host)
+    # group the 'hosts' axis by owning process so the inner axis stays
+    # process-local
+    devices = sorted(devices, key=lambda d: (d.process_index, d.id))
+    dm = np.asarray(devices).reshape(n_proc, per_host)
     return Mesh(dm, ("hosts", "chips"))
 
 
@@ -108,8 +94,8 @@ def scaling_report(
     """rays/s at several device counts over the SAME per-render workload →
     {count: rays_per_s}, plus 'efficiency': throughput(n_max) /
     (n_max * throughput(1)). On real multi-chip hardware this is the
-    BASELINE scaling figure; on one chip / virtual CPU devices it validates
-    the sharded program structure and measures parallel overhead."""
+    BASELINE scaling figure; on virtual CPU devices it validates the
+    sharded program structure and measures parallel overhead."""
     from raytrace_tpu.parallel import sharded
 
     devices = jax.devices()

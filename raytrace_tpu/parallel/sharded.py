@@ -1,20 +1,21 @@
 """Multi-chip rendering over a jax.sharding.Mesh.
 
 The reference is single-GPU/single-process with no communication backend at
-all (SURVEY.md §2.6, §5.8). The TPU-native scale-out (BASELINE north star):
+all (SURVEY.md §2.6, §5.8). The scale-out here (BASELINE north star):
 
-  - camera-ray tiles sharded per chip (pixel-sample axis → 'chips');
-  - photon waves traced independently per chip, each covering a disjoint
+  - camera-ray tiles sharded per device (pixel-sample axis → 'chips');
+  - photon waves traced independently per device, each covering a disjoint
     slice of the GLOBAL photon path-id space (Halton indices + per-path RNG
-    keys are pure functions of the global id, so the union over any chip
+    keys are pure functions of the global id, so the union over any device
     count is the same photon set);
-  - per-chip photon maps `all_gather`ed over ICI, grid built per chip
-    (replicated compute, zero further comms during gather);
+  - per-device photon maps `all_gather`ed, the gather structures built per
+    device (replicated compute, no further communication during gather);
   - scene/material parameter gradients `psum`ed by shard_map's transpose in
     the backward sweep (train_step_sharded).
 
-Scene tables replicate (they are small relative to HBM; the 4M-triangle
-config is ~200 MB replicated — fine on v5p).
+The mesh is one axis: every card of a host reaches every other at the same
+rate, so no device order is preferred. Scene tables replicate (the
+4M-triangle scene is ~200 MB per copy).
 """
 from __future__ import annotations
 
@@ -58,14 +59,12 @@ def _radiance_shard(
     """Per-chip radiance for a shard of pixel samples. Runs inside shard_map.
 
     axes: the mesh axes the pixel-sample axis is sharded over, OUTERMOST
-    first. A flat 1-D mesh passes ('chips',); the multi-host hierarchical
-    mesh passes ('hosts', 'chips') — photon maps are then all-gathered in
-    TWO HOPS: within-host over the 'chips' axis (ICI) first, so each host
-    assembles its local wave once, then across hosts over the 'hosts' axis
-    (one DCN transfer of the host-aggregated map per host pair), which is
-    the design multihost.py:10-18 describes. Every chip ends with the full
-    map and builds/queries the grid locally (replicated compute, no comms
-    during gather)."""
+    first. A flat 1-D mesh passes ('chips',); the multi-process mesh passes
+    ('hosts', 'chips') — photon maps are then all-gathered in two hops:
+    within a process over the 'chips' axis first, so each process assembles
+    its local wave once, then across processes over the 'hosts' axis. Every
+    device ends with the full map and queries it locally (replicated
+    compute, no communication during gather)."""
     # linear chip id over the (possibly hierarchical) mesh, outer-major —
     # matches the tiled all_gather concatenation order below
     chip = jax.lax.axis_index(axes[0])
@@ -99,8 +98,8 @@ def _radiance_shard(
     cfg_local = dataclasses.replace(config, photon_paths=paths_local)
 
     def gather_two_hop(x):
-        # innermost axis first (ICI within a host), then outward (DCN):
-        # tiled all_gathers concatenate outer-major, matching `chip` above
+        # innermost axis first (within a process), then outward: tiled
+        # all_gathers concatenate outer-major, matching `chip` above
         for ax in reversed(axes):
             x = jax.lax.all_gather(x, ax, tiled=True)
         return x
@@ -115,11 +114,10 @@ def _radiance_shard(
     # SOFTWARE-PIPELINED waves: wave p's body STARTS the all_gather of its
     # freshly traced map, then runs the gather pass on wave p−1's map — the
     # collective has no consumer inside the step, so XLA's async collectives
-    # hide the DCN/ICI transfer under the next trace+gather compute instead
-    # of serializing on it (VERDICT r4 #2: the comm-model's ~98% 2-host
-    # claim assumed the all_gather sat on the critical path; now it
-    # doesn't). Each map is still gathered exactly once against exactly the
-    # state it would have met sequentially, so results are identical.
+    # can hide the transfer under the next trace+gather compute instead of
+    # serializing on it. Each map is still gathered exactly once against
+    # exactly the state it would have met sequentially, so results are
+    # identical.
     def wave(carry, p):
         state, prev_map = carry
         new_map = trace_gathered(p)

@@ -22,12 +22,11 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 from jax import Array
 
-from raytrace_tpu.core import sampling, spectrum, vec
+from raytrace_tpu.core import sampling, spectrum, struct, vec
 from raytrace_tpu.core.config import RenderConfig
 from raytrace_tpu.ops import intersect as isect_ops
 from raytrace_tpu.ops import photon_grid
@@ -41,7 +40,7 @@ from raytrace_tpu.utils import film
 BIG = isect_ops.BIG
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class ProgressiveState:
     """Per-pixel-sample PPM statistics (the reference keeps these inside
     RayTracingRecord, photonmapping.h:16-19). This pytree is the natural
@@ -52,7 +51,7 @@ class ProgressiveState:
     # per-pixel emitted photon paths over the waves this pixel PARTICIPATED
     # in (a gather job-budget overflow skips a pixel's wave: its flux lacks
     # that wave's photons, so its normalization must exclude those paths —
-    # the unbiased treatment of overflow, VERDICT r4 weak #3). None = legacy
+    # the unbiased treatment of overflow). None = legacy
     # callers; final_gathering then normalizes by the global emitted count.
     emitted: Array = None  # [N] float
 
@@ -174,14 +173,9 @@ def trace_photons(
 
 def _dep_write(buf, dep, slot, v, depth: int, width: int):
     """Masked per-path deposit into a [rows, depth·width] slab buffer WITHOUT
-    a scatter: one-hot on the slot column, pure elementwise select.
-
-    Rationale (round 5, tools/exp_scatter*.py on v5e): the former flat
-    `buf.at[row·depth+slot].set(...)` scatter measured 11.6 ms per 262k-row
-    write — 4 of them per walk step were ~half the whole trace pass. The
-    dense rewrite is 1.5–2 ms for the same update (bit-identical result),
-    because TPU scatters serialize on the scalar core while this form is
-    pure VPU/HBM streaming."""
+    a scatter: one-hot on the slot column, pure elementwise select
+    (bit-identical to the flat `buf.at[row·depth+slot].set(...)` scatter it
+    replaced; which of the two is faster on the GPU is not measured)."""
     cols = jnp.arange(depth * width, dtype=jnp.int32) // jnp.int32(width)
     mask = dep[:, None] & (cols[None, :] == slot[:, None])
     return jnp.where(mask, jnp.tile(v, (1, depth)), buf)
@@ -204,8 +198,8 @@ def _chain_append(chain, app, col, mat, CH: int):
 def _bounce_uniforms(k_bounce, gids, n_int):
     """3 uniforms for this bounce, a pure function of (pass key, GLOBAL path
     id, n_int) — sharding-invariant like the precomputed table it replaces
-    (the [paths, depth+1, 3] table needed a per-step 262k-row gather from a
-    rank-3 array, measured ~5-10 ms/step; two threefry fold_ins are ~0.3 ms).
+    (the [paths, depth+1, 3] table needed a per-step row gather from a
+    rank-3 array; two threefry fold_ins need none).
     Each diffuse continuation has a distinct n_int (cont always increments),
     so no bounce ever reuses another bounce's numbers."""
     def one(g, ni):
@@ -264,11 +258,9 @@ def _trace_photons_core(
     # one 3-wide column block per deposit slot — the reference's pm_index
     # striding, photontracing.cu:82, as a row-local column index). Deposits
     # are written with _dep_write's dense one-hot select instead of a
-    # scatter (measured 11.6 → 1.5 ms per step-write on v5e); the final
-    # reshape to the flat [paths·max_depth, 3] map is layout-compatible
-    # (row-major), so downstream consumers see the exact same slot order.
-    # (Rank-3 [paths, depth, 3] buffers are still avoided: their (8, 128)
-    # tiling pads the 4×3 minor dims 42× — a measured OOM at 4M paths.)
+    # scatter; the final reshape to the flat [paths·max_depth, 3] map is
+    # layout-compatible (row-major), so downstream consumers see the exact
+    # same slot order.
     n_slots = n_paths * max_depth
     CH = config.max_photon_bounces  # chain capacity (≤ one append per step)
     ph_p = jnp.zeros((n_paths, max_depth * 3), jnp.float32)
@@ -368,16 +360,12 @@ def _photon_step(
     width = o.shape[0]
     max_depth = config.max_photon_depth
     eps = jnp.float32(config.scene_epsilon)
-    # DEAD lanes get an empty t-window: the epoch/cluster engines sort them
-    # last and cull zero pairs for them, so a late queue bounce with 5%
-    # live lanes pays ~5% of the pair/MT work instead of re-intersecting
-    # every lane's stale ray at full price (measured: the config[4] trace
-    # is queue-batch bounces × full-width intersects without this)
+    # DEAD lanes get an empty t-window (tmax = 0): their BVH traversal
+    # fails the first box test and retires, so a late queue bounce with few
+    # live lanes does not re-intersect every lane's stale ray
     hit = isect_ops.intersect(
         scene, o, d, jnp.full((width,), eps),
         jnp.where(act, jnp.float32(BIG), 0.0),
-        rounds=config.intersect_rounds,
-        budget_scale=config.intersect_budget_scale,
     )
     alive = act & hit.valid  # miss → photon dies (photontracing.cu:193)
     pair_overflow = hit.pair_overflow
@@ -446,7 +434,7 @@ def _photon_step(
         # diffuse continuations (fr = kd/π) and MIRROR bounces (thr = Kr,
         # stored in kd). GLASS throughput is ones (kd-independent): recording
         # it would yield a spurious d(alpha)/d(kd[glass]) in the replay
-        # ratio (the true gradient is 0 — ADVICE r4 medium).
+        # ratio (the true gradient is 0).
         append=next_alive
         & (cont | (spec_hit & mat_ops.kd_in_specular(scene.materials,
                                                      hit.mat))),
@@ -460,11 +448,9 @@ def _photon_walk_compact(step, k_bounce, gids, alive, o, d, alpha, ph,
     step 0 runs full-batch (every path is live), then survivors are gathered
     into a static k-wide queue and walked TO COMPLETION by an inner bounce
     loop over k lanes only; their deposit slab rows write back once per
-    batch. (Round-2 re-compacted every bounce — a full-width jnp.nonzero +
-    full-width state scatters per step, measured as the bulk of the trace
-    pass; round 5 replaced the per-step flat-slot scatters with
-    _dep_write's dense one-hot and the per-batch [k·depth]-row
-    gather/scatter pairs with k-ROW slab gathers/scatters.) Each path takes
+    batch, instead of a full-width jnp.nonzero + state scatters on every
+    step; deposits use _dep_write's dense one-hot and the batches k-ROW
+    slab gathers/scatters. Each path takes
     at most `max_photon_bounces` steps, so the walks produce the same
     photon sets as the full-batch loop up to XLA fusion noise."""
     n = o.shape[0]
@@ -504,10 +490,9 @@ def _photon_walk_compact(step, k_bounce, gids, alive, o, d, alpha, ph,
     # only specular hits survive bounce 0.)
     # 0 = auto: small launches warm 3 full-width steps (survivor decay is
     # slow and queue batches re-walk to full depth), but at multi-million-
-    # path scale each full-width step is an expensive incoherent intersect
-    # — ONE warm step then the k-wide queue measured 38.5 s → 18.0 s at
-    # config[4] with identical deposits (the walks are equivalent
-    # estimators at any batching)
+    # path scale each full-width step is an expensive incoherent intersect,
+    # so ONE warm step precedes the k-wide queue there (the walks are
+    # equivalent estimators at any batching)
     warm_cfg = config.compact_warm_steps or (3 if n < (1 << 21) else 1)
     warm = min(warm_cfg, config.max_photon_bounces - 1)
     if warm > 1:
@@ -627,19 +612,52 @@ def _photon_walk_compact(step, k_bounce, gids, alive, o, d, alpha, ph,
     return ph[:4], pair_ovf, ph[4]
 
 
+ROWSPAN_MIN_SLOTS = 1 << 14
+# implementation of the row-span gather's job blocks on the render path
+# (rowspan_gather.gather_radius_rowspan `impl`); tools/ab_rowspan.py
+# compiles the render with each value for the kernel A/B
+ROWSPAN_IMPL = "pallas"
+
+
+def gather_method(platform: str, n_slots: int, config: RenderConfig) -> str:
+    """Radius-search implementation for a photon map of n_slots slots:
+    "dense" (exact all-pairs scan), "rowspan" (exact row-span gather,
+    ops/rowspan_gather.py) or "grid" (the budgeted hash grid).
+
+    On the GPU every path is exact: the row-span gather from
+    ROWSPAN_MIN_SLOTS slots up, the all-pairs scan below. Elsewhere (the
+    CPU) maps under AD below 2^15 slots take the all-pairs scan and the
+    rest the hash grid."""
+    if config.exact_gather:
+        return "dense"
+    if config.differentiable and n_slots < (1 << 15):
+        return "dense"
+    if platform == "gpu":
+        return "rowspan" if n_slots >= ROWSPAN_MIN_SLOTS else "dense"
+    return "grid"
+
+
+def rowspan_capacity(config: RenderConfig, n_slots: int) -> tuple[int, int]:
+    """(job_budget, rounds) of the row-span gather: capacity is their
+    product in (query tile, photon chunk) jobs. Config 0 = 2^17 jobs × a
+    round count that scales with the map, clamped to [4, 16]."""
+    rounds = config.gather_rounds or max(4, min(16, n_slots >> 18))
+    return config.gather_job_budget or (1 << 17), rounds
+
+
 def gathering_pass(
     scene: Scene,
     rec: common.CameraRecords,
     state: ProgressiveState,
     photons: photon_grid.PhotonMap,
     config: RenderConfig,
+    interpret: bool = False,
 ) -> tuple[ProgressiveState, dict]:
     """Progressive radius/flux update (reference: gathering.cu:104-126).
 
-    The radius search dispatches between the Pallas dense wavefront kernel
-    (TPU forward path — exact, the measured hot spot of the pipeline) and
-    the jnp hash-grid path (CPU, and the differentiable path: the grid
-    gather is linear in alpha/kd so AD flows through it).
+    The radius search is chosen by gather_method from the platform and the
+    map size. interpret=True runs the row-span gather's Pallas kernels in
+    the Pallas interpreter (tests on the CPU).
 
     Gather JOB-BUDGET overflow is UNBIASED when state.emitted is tracked
     (the renderer entry points initialize it): a pixel tile the budget
@@ -650,85 +668,50 @@ def gathering_pass(
     callers with state.emitted = None keep the old biased-dark semantics
     under overflow (final_gathering then normalizes by ALL emitted
     paths)."""
-    import os
-
     wo = vec.normalize(-rec.direction)
     kd_over_pi = mat_ops.f(scene.materials, rec.mat, wo, wo, uv=rec.uv)
-    from raytrace_tpu.ops.intersect import _pallas_enabled
 
     gather_overflow = jnp.int32(0)
     covered = None  # None = every query participated (exact paths)
-    if config.exact_gather:
+    method = gather_method(jax.default_backend(), photons.p.shape[0], config)
+    if method == "dense":
         idl, m = photon_grid.gather_radius_dense(
             photons, rec.p, state.radius2, rec.ns, kd_over_pi
         )
         info = dict(valid_photons=jnp.sum(photons.valid).astype(jnp.int32),
                     max_cell_occupancy=jnp.int32(-1))  # -1 = exact path
-    elif config.differentiable and photons.p.shape[0] < (1 << 15):
-        # small maps under AD: exact streamed all-pairs on EVERY backend
-        # (linear in alpha/kd, no truncation budget anywhere on the AD
-        # path). Round 3 only reached this inside _pallas_enabled(), so the
-        # CPU-backend differentiable path fell into the budgeted jnp grid
-        # below and the multichip dryrun trained on a truncated flux/grad
-        # (VERDICT r3 weak #2).
-        idl, m = photon_grid.gather_radius_dense(
-            photons, rec.p, state.radius2, rec.ns, kd_over_pi
+    elif method == "rowspan":
+        from raytrace_tpu.ops import rowspan_gather
+
+        # Photons sorted by linear cell key, per-tile (z, y)-row spans merged
+        # into a packed (tile, chunk) job list — cost ∝ photons actually
+        # near each query tile. Cell size is the q90 LIVE radius
+        # (gather_cell_size) and each tile reaches ceil(max_tile_radius /
+        # cell) cells; miss-pixel queries have radius² = 0 so they never
+        # widen a tile's cell box. DIFFERENTIABLE: custom VJP over the same
+        # job list, so fwd+bwd both run the kernels.
+        cell_size = gather_cell_size(rec, state)
+        q_r2 = jnp.where(rec.hit, state.radius2, 0.0)
+        job_budget, rounds = rowspan_capacity(config, photons.p.shape[0])
+        idl, m, gather_overflow, covered = (
+            rowspan_gather.gather_radius_rowspan(
+                photons.p, photons.alpha, photons.wi, photons.valid,
+                cell_size, rec.p, q_r2, rec.ns, kd_over_pi,
+                r_max=config.gather_r_max,
+                rounds=rounds,
+                job_budget=job_budget,
+                impl=ROWSPAN_IMPL,
+                interpret=interpret,
+                return_covered=True,
+            )
+        )
+        isect_ops.debug_warn_nonzero(
+            gather_overflow,
+            "WARNING raytrace_tpu: gather job budget overflow by {} "
+            "jobs — affected pixel tiles skip this wave (excluded "
+            "from their normalization); raise gather_rounds",
         )
         info = dict(valid_photons=jnp.sum(photons.valid).astype(jnp.int32),
-                    max_cell_occupancy=jnp.int32(-1))
-    elif _pallas_enabled():
-        from raytrace_tpu.ops import pallas_gather
-
-        if photons.p.shape[0] >= (1 << 14):
-            # row-span grid kernel: photons sorted by linear cell key,
-            # per-tile (z, y)-row spans merged into a packed (tile, chunk)
-            # job list — cost ∝ photons actually near each query tile, the
-            # only path that scales to the BASELINE 16M-photon config.
-            # Cell size is the q90 LIVE radius (gather_cell_size) and each
-            # tile reaches ceil(max_tile_radius/cell) cells, so shrinking/
-            # footprint radii tighten the spans while the few big-radius
-            # tiles just reach further; miss-pixel queries have
-            # radius² = 0 so they never widen a tile's cell box. Job-budget
-            # overflow is counted in the aux dict; overflowed tiles return
-            # L = 0, M = 0 (defined output — those pixels skip the wave).
-            # DIFFERENTIABLE: custom VJP over the same job list
-            # (pallas_gather._rowspan_S), so fwd+bwd both run this kernel.
-            cell_size = gather_cell_size(rec, state)
-            q_r2 = jnp.where(rec.hit, state.radius2, 0.0)
-            # capacity scales with the map (config knobs, 0 = auto):
-            # rounds × 2^17 jobs; each round's list is SMEM-prefetch
-            # bounded, so capacity is bought in rounds. r_max: (z, y)-row
-            # budget per query tile (big scenes put a tile's box at
-            # ~5×5×7 cells — 32 rows overflowed into the whole-box
-            # fallback, PERF.md §2).
-            rounds = config.gather_rounds or max(
-                4, min(16, photons.p.shape[0] >> 18))
-            idl, m, gather_overflow, covered = (
-                pallas_gather.gather_radius_pallas_rowspan(
-                    photons.p, photons.alpha, photons.wi, photons.valid,
-                    cell_size, rec.p, q_r2, rec.ns, kd_over_pi,
-                    r_max=config.gather_r_max,
-                    rounds=rounds,
-                    job_budget=config.gather_job_budget or (1 << 17),
-                    interpret=(os.environ.get("RAYTRACE_TPU_INTERPRET")
-                               == "1"),
-                    return_covered=True,
-                )
-            )
-            isect_ops.debug_warn_nonzero(
-                gather_overflow,
-                "WARNING raytrace_tpu: gather job budget overflow by {} "
-                "jobs — affected pixel tiles skip this wave (excluded "
-                "from their normalization); raise gather_rounds",
-            )
-            n_valid = jnp.sum(photons.valid).astype(jnp.int32)
-        else:
-            pp, pa, pw, pv, n_valid = pallas_gather.compact_photons(photons)
-            idl, m = pallas_gather.gather_radius_pallas(
-                pp, pa, pw, pv, n_valid, rec.p, state.radius2, rec.ns,
-                kd_over_pi,
-            )
-        info = dict(valid_photons=n_valid,
                     max_cell_occupancy=jnp.int32(-1))  # -1: exact, no budget
     else:
         cell_size = jnp.sqrt(jnp.float32(config.initial_radius2))
@@ -748,7 +731,7 @@ def gathering_pass(
             over_budget,
             "WARNING raytrace_tpu: photon grid cell occupancy exceeds "
             "grid_max_photons_per_cell by {} — flux/gradient truncated; "
-            "raise the budget or use the Pallas/exact gather",
+            "raise the budget or use the exact gather",
         )
         gather_overflow = gather_overflow + over_budget
         info = dict(valid_photons=grid.n_valid, max_cell_occupancy=occ)
@@ -1021,9 +1004,9 @@ def _render_photon(
         valid_photons=valid_photons,
         max_cell_occupancy=max_occ,
         gather_overflow=gather_ovf,
-        # total cluster pair/subpair budget overflow across every camera,
-        # shadow, and photon-bounce intersect of the frame: 0 == every
-        # accelerated traversal was exact (ADVICE r3 medium)
+        # intersections dropped by a traversal budget across every camera,
+        # shadow and photon-bounce intersect of the frame (every traversal
+        # is exact, so 0; callers assert on it)
         pair_overflow=(cam_aux["pair_overflow"] + dl_aux["pair_overflow"]
                        + photon_pair_ovf),
         mean_radius2=jnp.mean(jnp.where(rec.hit, state.radius2, 0.0)),

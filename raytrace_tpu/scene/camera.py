@@ -14,16 +14,15 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import Array
 
-from raytrace_tpu.core import vec
+from raytrace_tpu.core import struct, vec
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class RayDifferentials:
     """SoA batch of camera rays (reference: CudaRayDifferential,
     util/common.cu.h:7-14)."""
@@ -35,7 +34,7 @@ class RayDifferentials:
     ry_d: Array  # [N, 3]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class PerspectiveCamera:
     raster_to_camera: Array  # [4, 4]
     camera_to_world: Array  # [3, 4]
@@ -43,8 +42,8 @@ class PerspectiveCamera:
     dy_camera: Array  # [3]
     lens_radius: Array  # scalar
     focal_distance: Array  # scalar
-    width: int = flax.struct.field(pytree_node=False, default=256)
-    height: int = flax.struct.field(pytree_node=False, default=256)
+    width: int = struct.field(pytree_node=False, default=256)
+    height: int = struct.field(pytree_node=False, default=256)
 
     @staticmethod
     def make(
@@ -166,7 +165,9 @@ def generate_rays(
         [image_xy, jnp.zeros((n, 1), image_xy.dtype), jnp.ones((n, 1), image_xy.dtype)],
         axis=-1,
     )
-    p_cam_h = p_ras @ camera.raster_to_camera.T
+    # exact f32 (a GPU dot may run in TF32): broadcast-multiply-sum
+    p_cam_h = jnp.sum(p_ras[:, None, :] * camera.raster_to_camera[None],
+                      axis=-1)
     p_cam = p_cam_h[:, :3] / p_cam_h[:, 3:4]
 
     o_cam = jnp.zeros((n, 3), jnp.float32)

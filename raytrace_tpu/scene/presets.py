@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from raytrace_tpu.core.config import RenderConfig
 from raytrace_tpu.scene import transform as tr
 from raytrace_tpu.scene.builder import SceneBuilder
 from raytrace_tpu.scene.camera import PerspectiveCamera
@@ -74,6 +75,22 @@ def cornell_box(
     c2w = tr.look_at((0.0, -2.4, 1.0), (0.0, 1.0, 1.0), (0.0, 0.0, 1.0))
     cam = PerspectiveCamera.make(c2w, 60.0, size, size)
     return b.build(), cam
+
+
+def headline(size: int = 512, photon_paths: int = 1 << 18,
+             differentiable: bool = False):
+    """The headline workload → (scene, camera, config): the Cornell box
+    with a glass ball at size×size, 1 spp, one wave of photon_paths paths,
+    8 photon bounces and SPPM-style footprint radii (scale 8 — sharper than
+    the reference's global radius² = 4, which makes every gather query span
+    the whole box)."""
+    scene, camera = cornell_box(size=size, ball="glass")
+    config = RenderConfig(
+        width=size, height=size, spp=1, scene_epsilon=1e-3,
+        photon_paths=photon_paths, photon_passes=1, max_photon_bounces=8,
+        footprint_radius_scale=8.0, differentiable=differentiable,
+    )
+    return scene, camera, config
 
 
 def triangle_field(

@@ -2,8 +2,8 @@
 
 The reference mirrors the parsed pbrt scene into an OptiX two-level node graph
 (Group/GeometryGroup/GeometryInstance/Transform, cudarender.cpp:38-75) with
-per-shape PTX programs. The TPU-native design replaces the graph with flat
-arrays per shape family — triangles pre-transformed to world space like the
+per-shape PTX programs. Here the graph is replaced with flat arrays per shape
+family — triangles pre-transformed to world space like the
 reference mesh path (cudatrianglemesh.cpp:28-31), disks flattened to a world
 frame like the reference disk path (cudadisk.cpp:23-43), spheres kept in
 object space behind an affine o2w/w2o pair like the reference Transform node
@@ -14,9 +14,10 @@ shapes; padding prims carry mat = -1 and can never hit (degenerate geometry).
 """
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 from jax import Array
+
+from raytrace_tpu.core import struct
 
 # Material types (reference: util/common.cu.h:61-63)
 MATTE, MIRROR, GLASS = 0, 1, 2
@@ -27,7 +28,7 @@ MATTE, MIRROR, GLASS = 0, 1, 2
 LIGHT_POINT, LIGHT_AREA_DISK, LIGHT_DISTANT = 0, 1, 2
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Triangles:
     """World-space triangle soup with optional shading normals and UVs.
 
@@ -52,7 +53,7 @@ class Triangles:
         return self.v0.shape[0]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Spheres:
     """Full spheres intersected in object space (reference: cudasphere.cu:27-72;
     the o2w/w2o pair plays the reference's OptiX Transform node)."""
@@ -70,7 +71,7 @@ class Spheres:
         return self.radius.shape[0]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Disks:
     """Disks flattened to a world frame exactly like the reference host setup
     (cudadisk.cpp:23-43): o = world center, x/y = radius-scaled world axes,
@@ -91,7 +92,7 @@ class Disks:
         return self.moffset.shape[0]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Materials:
     """Tagged material table (reference: util/material/cudamaterial.{h,cpp} —
     Matte/Mirror/Glass with a single constant spectrum parameter)."""
@@ -106,7 +107,7 @@ class Materials:
     tex_scale: Array = None  # [M] f32
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Lights:
     """Flattened light table (reference: CudaLightDevice, common.cu.h:47-59).
 
@@ -127,7 +128,7 @@ class Lights:
         return self.ltype.shape[0]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Scene:
     tris: Triangles
     spheres: Spheres
@@ -137,13 +138,9 @@ class Scene:
     # Optional flattened BVH over `tris` (ops/bvh.py). When present, the
     # triangle arrays are stored in BVH leaf order and intersection goes
     # through wavefront traversal instead of the brute-force scan — the
-    # TPU-native stand-in for the reference's OptiX "Sbvh" acceleration
+    # stand-in for the reference's OptiX "Sbvh" acceleration
     # (cudarender.cpp:44-50). None = brute force (small scenes).
     bvh: object = None
-    # Cluster-binned structure (ops/cluster_intersect.py) built from the same
-    # BVH-leaf triangle order; the TPU path prefers it (gather-free Pallas
-    # culling + block-sparse intersection), the CPU path uses the BVH.
-    clusters: object = None
 
     def with_materials(self, materials: Materials) -> "Scene":
         return self.replace(materials=materials)
@@ -155,7 +152,7 @@ class Scene:
 def empty_triangles(n: int = 0) -> Triangles:
     """Empty (0-length) triangle family: intersect() skips zero-count
     families entirely (static shapes), so an absent family costs nothing —
-    no padding primitive needed (VERDICT r4 weak #8)."""
+    no padding primitive needed."""
     far = jnp.full((n, 3), 1e30, dtype=jnp.float32)
     z2 = jnp.zeros((n, 2), dtype=jnp.float32)
     up = jnp.tile(jnp.array([[0.0, 0.0, 1.0]], jnp.float32), (max(n, 1), 1))[:n]

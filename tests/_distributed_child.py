@@ -5,7 +5,7 @@ Launched by tests/test_multihost.py::test_two_process_distributed_render as
 Each process owns 2 virtual CPU devices; the 2×2 ('hosts', 'chips')
 hierarchical mesh exercises the REAL multi-process code path: per-chip
 photon waves over disjoint global path-id slices, two-hop all_gather
-(within-process axis first, cross-process axis second — the DCN hop), and
+(within-process axis first, cross-process axis second), and
 pixel shards over the flattened mesh (parallel/sharded._radiance_shard).
 """
 import os
@@ -20,7 +20,7 @@ if "xla_force_host_platform_device_count" not in flags:
         flags + " --xla_force_host_platform_device_count=2"
     ).strip()
 # cross-machine CPU AOT cache entries can segfault on load (see conftest)
-os.environ.setdefault("RAYTRACE_TPU_NO_COMPILE_CACHE", "1")
+os.environ.setdefault("RAYTRACE_NO_COMPILE_CACHE", "1")
 
 import jax  # noqa: E402
 

@@ -120,9 +120,9 @@ def test_native_sah_builder_matches_numpy_builder():
     off = rng.normal(size=(1500, 3, 3)) * 0.3
     v = (c[:, None, :] + off).astype(np.float32)
 
-    import flax.struct
+    from raytrace_tpu.core import struct
 
-    @flax.struct.dataclass
+    @struct.dataclass
     class MiniTris:
         v0: jnp.ndarray
         v1: jnp.ndarray

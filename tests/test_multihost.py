@@ -37,8 +37,8 @@ def test_scaling_report_structure():
 
 def test_hierarchical_mesh_two_hop_matches_single_device():
     """The ('hosts', 'chips') hierarchical mesh path — linear chip ids over
-    both axes + two-hop photon all_gather (inner/ICI axis first, outer/DCN
-    axis second) — must reproduce the 1-device render exactly (up to float
+    both axes + two-hop photon all_gather (inner axis first, outer axis
+    second) — must reproduce the 1-device render exactly (up to float
     reassociation), same contract as the flat mesh."""
     import jax.numpy as jnp  # noqa: F401
     from jax.sharding import Mesh

@@ -1,205 +1,19 @@
-"""Pallas megakernel vs the jnp dense scan (interpret mode on CPU).
-
-The kernel must be a drop-in for ops/intersect.intersect_triangles: same
-closest hits, same differentiable surface via the winner re-intersection."""
+"""Row-span photon gather (ops/rowspan_gather.py): the Triton-route Pallas
+kernels in the Pallas interpreter and the plain jax.numpy version, against
+the exact dense gather (photon_grid.gather_radius_dense) and each other."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from raytrace_tpu.ops import intersect as ii
-from raytrace_tpu.ops import pallas_intersect as pi
-from raytrace_tpu.scene.builder import SceneBuilder
+from raytrace_tpu.ops import photon_grid as pg
+from raytrace_tpu.ops import rowspan_gather as rg
 
-
-def soup_scene(n_tris=700, seed=4):
-    rng = np.random.default_rng(seed)
-    centers = rng.uniform(-4, 4, (n_tris, 3))
-    offs = rng.normal(size=(n_tris, 3, 3)) * 0.35
-    verts = (centers[:, None, :] + offs).reshape(-1, 3)
-    idx = np.arange(3 * n_tris).reshape(-1, 3)
-    b = SceneBuilder()
-    b.triangle_mesh(verts, idx, material=b.matte((0.5, 0.5, 0.5)))
-    b.point_light((0, 0, 10), (100.0, 100.0, 100.0))
-    return b.build(use_bvh=False)
-
-
-def random_rays(n, seed):
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return jnp.asarray(o), jnp.asarray(d)
-
-
-def test_pallas_matches_dense_scan():
-    scene = soup_scene()
-    # n deliberately not a multiple of TILE_RAYS; n_tris not of TILE_TRIS
-    n = 300
-    o, d = random_rays(n, seed=9)
-    tmin = jnp.full((n,), 1e-3)
-    tmax = jnp.full((n,), 1e30)
-    t_p, i_p, b_p, g_p = pi.intersect_triangles_pallas(
-        scene.tris, o, d, tmin, tmax, interpret=True
-    )
-    t_f, i_f, b_f, g_f = ii.intersect_triangles(scene, o, d, tmin, tmax)
-    np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_f), rtol=1e-5)
-    hit = np.asarray(t_f) < 1e29
-    np.testing.assert_array_equal(np.asarray(i_p)[hit], np.asarray(i_f)[hit])
-    np.testing.assert_allclose(np.asarray(b_p)[hit], np.asarray(b_f)[hit],
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_p)[hit], np.asarray(g_f)[hit],
-                               atol=1e-5)
-
-
-def test_pallas_respects_tmax_window():
-    scene = soup_scene(seed=8)
-    n = 128
-    o, d = random_rays(n, seed=10)
-    tmin = jnp.full((n,), 1e-3)
-    tmax = jnp.full((n,), 2.5)
-    t_p, _, _, _ = pi.intersect_triangles_pallas(
-        scene.tris, o, d, tmin, tmax, interpret=True
-    )
-    t_f, _, _, _ = ii.intersect_triangles(scene, o, d, tmin, tmax)
-    np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_f), rtol=1e-5)
-    tp = np.asarray(t_p)
-    assert ((tp >= 1e29) | ((tp > 1e-3) & (tp < 2.5))).all()
-
-
-def test_pallas_gather_matches_reference_sum():
-    """Dense Pallas radius search vs a direct numpy O(N·P) reference and the
-    jnp hash-grid gather."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
-    rng = np.random.default_rng(19)
-    P, N = 1000, 200
-    p = rng.uniform(-2, 2, (P, 3)).astype(np.float32)
-    alpha = rng.uniform(0, 1, (P, 3)).astype(np.float32)
-    wi = rng.normal(size=(P, 3)).astype(np.float32)
-    wi /= np.linalg.norm(wi, axis=-1, keepdims=True)
-    valid = rng.uniform(size=P) < 0.7
-
-    qp = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
-    r2 = rng.uniform(0.05, 0.25, N).astype(np.float32)
-    ns = rng.normal(size=(N, 3)).astype(np.float32)
-    ns /= np.linalg.norm(ns, axis=-1, keepdims=True)
-    kd = rng.uniform(0, 1, (N, 3)).astype(np.float32)
-
-    # numpy reference
-    d2 = ((qp[:, None, :] - p[None, :, :]) ** 2).sum(-1)
-    ok = (d2 < r2[:, None]) & valid[None, :]
-    w = np.abs(np.einsum("nc,pc->np", ns, wi))
-    L_ref = kd * np.einsum("np,pc->nc", np.where(ok, w, 0.0), alpha)
-    m_ref = ok.sum(1)
-
-    photons = pg.PhotonMap(p=jnp.asarray(p), alpha=jnp.asarray(alpha),
-                           wi=jnp.asarray(wi), valid=jnp.asarray(valid))
-    pp, pa, pw, pv, nv = pg_pallas.compact_photons(photons)
-    L, m = pg_pallas.gather_radius_pallas(
-        pp, pa, pw, pv, nv, jnp.asarray(qp), jnp.asarray(r2),
-        jnp.asarray(ns), jnp.asarray(kd), interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(L), L_ref, rtol=2e-4, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(m), m_ref)
-
-    # jnp hash-grid path agrees too (budget large enough to be exact)
-    grid = pg.build_photon_grid(photons, cell_size=0.5)
-    L_g, m_g = pg.gather_radius(
-        grid, jnp.asarray(qp), jnp.asarray(r2), jnp.asarray(ns),
-        jnp.asarray(-ns), jnp.asarray(kd), max_per_cell=64,
-    )
-    np.testing.assert_allclose(np.asarray(L_g), L_ref, rtol=2e-4, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(m_g), m_ref)
-
-
-def test_pallas_grid_gather_matches_dense():
-    """The grid-aware Pallas kernel (Morton-sorted photons, per-tile chunk
-    ranges, double-buffered DMA) must reproduce the exact dense gather —
-    radii at/below the cell size, clustered photons, invalid photons, and
-    query/photon counts off the tile boundaries."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
-    rng = np.random.default_rng(23)
-    P, N = 3000, 300
-    cell = 0.5
-    # clustered photons → non-uniform cell occupancy
-    centers = rng.uniform(-3, 3, (12, 3))
-    p = (centers[rng.integers(0, 12, P)] +
-         rng.normal(scale=0.4, size=(P, 3))).astype(np.float32)
-    alpha = rng.uniform(0, 1, (P, 3)).astype(np.float32)
-    wi = rng.normal(size=(P, 3)).astype(np.float32)
-    wi /= np.linalg.norm(wi, axis=-1, keepdims=True)
-    valid = rng.uniform(size=P) < 0.8
-
-    qp = rng.uniform(-3.5, 3.5, (N, 3)).astype(np.float32)
-    r2 = rng.uniform(0.01, cell * cell, N).astype(np.float32)
-    ns = rng.normal(size=(N, 3)).astype(np.float32)
-    ns /= np.linalg.norm(ns, axis=-1, keepdims=True)
-    kd = rng.uniform(0, 1, (N, 3)).astype(np.float32)
-
-    photons = pg.PhotonMap(p=jnp.asarray(p), alpha=jnp.asarray(alpha),
-                           wi=jnp.asarray(wi), valid=jnp.asarray(valid))
-    L_ref, m_ref = pg.gather_radius_dense(
-        photons, jnp.asarray(qp), jnp.asarray(r2), jnp.asarray(ns),
-        jnp.asarray(kd),
-    )
-    L, m = pg_pallas.gather_radius_pallas_grid(
-        photons.p, photons.alpha, photons.wi, photons.valid, cell,
-        jnp.asarray(qp), jnp.asarray(r2), jnp.asarray(ns), jnp.asarray(kd),
-        interpret=True, chunk=256,
-    )
-    np.testing.assert_allclose(np.asarray(L), np.asarray(L_ref),
-                               rtol=2e-4, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(m), np.asarray(m_ref))
-
-
-def test_pallas_grid_gather_no_valid_photons():
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-
-    rng = np.random.default_rng(5)
-    P, N = 300, 130
-    p = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
-    z3 = jnp.zeros((P, 3), jnp.float32)
-    L, m = pg_pallas.gather_radius_pallas_grid(
-        jnp.asarray(p), z3, z3, jnp.zeros((P,), bool), 1.0,
-        jnp.asarray(rng.uniform(-1, 1, (N, 3)).astype(np.float32)),
-        jnp.full((N,), 0.5, jnp.float32),
-        jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32), (N, 1)),
-        jnp.full((N, 3), 0.3, jnp.float32),
-        interpret=True, chunk=128,
-    )
-    assert np.asarray(m).sum() == 0
-    assert np.abs(np.asarray(L)).sum() == 0.0
-
-
-def test_pallas_winner_reintersection_is_differentiable():
-    """Gradients must flow through the returned t via the winner
-    re-intersection (hit-finding itself is stop_gradient'd)."""
-    scene = soup_scene(seed=12)
-    n = 128
-    o, d = random_rays(n, seed=14)
-    tmin = jnp.full((n,), 1e-3)
-    tmax = jnp.full((n,), 1e30)
-
-    def f(o_):
-        t, _, _, _ = pi.intersect_triangles_pallas(
-            scene.tris, o_, d, tmin, tmax, interpret=True
-        )
-        return jnp.sum(jnp.where(t < 1e29, t, 0.0))
-
-    g = jax.grad(f)(o)
-    assert np.isfinite(np.asarray(g)).all()
-    assert np.abs(np.asarray(g)).sum() > 0.0
 
 def test_pallas_rowspan_gather_matches_dense():
     """The row-span kernel (linear cell keys, per-tile (z,y)-row spans,
     packed job list) must reproduce the exact dense gather, including
     r²=0-disabled queries, invalid photons, and off-tile-boundary counts."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
     rng = np.random.default_rng(41)
     P, N = 3000, 300
     cell = 0.5
@@ -224,7 +38,7 @@ def test_pallas_rowspan_gather_matches_dense():
         photons, jnp.asarray(qp), jnp.asarray(r2), jnp.asarray(ns),
         jnp.asarray(kd),
     )
-    L, m, ovf = pg_pallas.gather_radius_pallas_rowspan(
+    L, m, ovf = rg.gather_radius_rowspan(
         photons.p, photons.alpha, photons.wi, photons.valid, cell,
         jnp.asarray(qp), jnp.asarray(r2), jnp.asarray(ns), jnp.asarray(kd),
         interpret=True, chunk=256,
@@ -238,7 +52,6 @@ def test_pallas_rowspan_gather_matches_dense():
 def test_pallas_rowspan_gather_overflow_counted():
     """With a tiny job budget the kernel must COUNT the jobs it skipped
     rather than silently truncating (observability contract)."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
 
     rng = np.random.default_rng(7)
     P, N = 4096, 260
@@ -249,7 +62,7 @@ def test_pallas_rowspan_gather_overflow_counted():
     r2 = np.full(N, 0.25, np.float32)
     ns = np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32), (N, 1))
     kd = np.full((N, 3), 0.3, np.float32)
-    _, _, ovf = pg_pallas.gather_radius_pallas_rowspan(
+    _, _, ovf = rg.gather_radius_rowspan(
         jnp.asarray(p), jnp.asarray(alpha), jnp.asarray(wi),
         jnp.ones((P,), bool), 0.5, jnp.asarray(qp), jnp.asarray(r2),
         jnp.asarray(ns), jnp.asarray(kd), interpret=True, chunk=128,
@@ -259,13 +72,12 @@ def test_pallas_rowspan_gather_overflow_counted():
 
 
 def test_pallas_rowspan_gather_no_valid_photons():
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
 
     rng = np.random.default_rng(5)
     P, N = 300, 130
     p = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
     z3 = jnp.zeros((P, 3), jnp.float32)
-    L, m, ovf = pg_pallas.gather_radius_pallas_rowspan(
+    L, m, ovf = rg.gather_radius_rowspan(
         jnp.asarray(p), z3, z3, jnp.zeros((P,), bool), 1.0,
         jnp.asarray(rng.uniform(-1, 1, (N, 3)).astype(np.float32)),
         jnp.full((N,), 0.5, jnp.float32),
@@ -295,10 +107,7 @@ def _rowspan_fixture(seed=3, P=3000, N=500):
 def test_pallas_rowspan_custom_vjp_matches_dense_ad():
     """The rowspan gather's custom VJP (transposed Pallas accumulation over
     the same job list) must produce the same dalpha/dkd as plain AD through
-    the exact dense gather — this is the kernel the fwd+bwd TPU path runs."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
+    the exact dense gather — the kernel the fwd+bwd path runs on the GPU."""
     pp, pa, pw, pv, qp, r2, ns, kd = _rowspan_fixture()
     cell = float(jnp.sqrt(r2.max()))
     pm = pg.PhotonMap(p=pp, alpha=pa, wi=pw, valid=pv)
@@ -306,7 +115,7 @@ def test_pallas_rowspan_custom_vjp_matches_dense_ad():
     cot = jnp.asarray(rng.normal(size=qp.shape).astype(np.float32))
 
     def f_rs(alpha, kd_):
-        L, _, _ = pg_pallas.gather_radius_pallas_rowspan(
+        L, _, _ = rg.gather_radius_rowspan(
             pp, alpha, pw, pv, cell, qp, r2, ns, kd_,
             interpret=True, chunk=256,
         )
@@ -326,17 +135,14 @@ def test_pallas_rowspan_custom_vjp_matches_dense_ad():
 
 def test_pallas_rowspan_overflow_defined_output():
     """Budget overflow must yield DEFINED output: fully-scanned tiles exact,
-    the partial/unvisited tail exactly (L, M) = 0 — never garbage (the
-    round-2 advisor finding). Gradients stay finite under overflow."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
+    the partial/unvisited tail exactly (L, M) = 0 — never garbage.
+    Gradients stay finite under overflow."""
     pp, pa, pw, pv, qp, r2, ns, kd = _rowspan_fixture(seed=9)
     cell = float(jnp.sqrt(r2.max()))
     pm = pg.PhotonMap(p=pp, alpha=pa, wi=pw, valid=pv)
     L_ref, m_ref = pg.gather_radius_dense(pm, qp, r2, ns, kd)
 
-    L, m, ovf = pg_pallas.gather_radius_pallas_rowspan(
+    L, m, ovf = rg.gather_radius_rowspan(
         pp, pa, pw, pv, cell, qp, r2, ns, kd,
         interpret=True, chunk=256, job_budget=30,
     )
@@ -355,7 +161,7 @@ def test_pallas_rowspan_overflow_defined_output():
 
     g = jax.grad(
         lambda a: jnp.sum(
-            pg_pallas.gather_radius_pallas_rowspan(
+            rg.gather_radius_rowspan(
                 pp, a, pw, pv, cell, qp, r2, ns, kd,
                 interpret=True, chunk=256, job_budget=30,
             )[0]
@@ -368,7 +174,6 @@ def test_pallas_rowspan_custom_vjp_matches_finite_differences():
     """Direct FD validation of the custom VJP (not just dense-AD
     equivalence): perturb single alpha/kd entries and compare central
     differences of a scalar loss against the returned gradient."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
 
     pp, pa, pw, pv, qp, r2, ns, kd = _rowspan_fixture(seed=21, P=1500, N=300)
     cell = float(jnp.sqrt(r2.max()))
@@ -376,7 +181,7 @@ def test_pallas_rowspan_custom_vjp_matches_finite_differences():
     cot = jnp.asarray(rng.normal(size=qp.shape).astype(np.float32))
 
     def loss(alpha, kd_):
-        L, _, _ = pg_pallas.gather_radius_pallas_rowspan(
+        L, _, _ = rg.gather_radius_rowspan(
             pp, alpha, pw, pv, cell, qp, r2, ns, kd_,
             interpret=True, chunk=256,
         )
@@ -405,14 +210,11 @@ def test_pallas_rowspan_adaptive_reach_small_cell():
     """Exactness with a cell SMALLER than most radii: per-tile reach
     (ceil(max_tile_radius/cell)) must cover every in-radius photon — the
     regime the old fixed-±1-neighborhood contract forbade."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
     pp, pa, pw, pv, qp, r2, ns, kd = _rowspan_fixture(seed=33)
     pm = pg.PhotonMap(p=pp, alpha=pa, wi=pw, valid=pv)
     L_ref, m_ref = pg.gather_radius_dense(pm, qp, r2, ns, kd)
     for cell in (0.1, 0.25, 2.0):  # radii run up to ~0.63
-        L, m, ovf = pg_pallas.gather_radius_pallas_rowspan(
+        L, m, ovf = rg.gather_radius_rowspan(
             pp, pa, pw, pv, cell, qp, r2, ns, kd,
             interpret=True, chunk=256, r_max=64,
         )
@@ -426,10 +228,7 @@ def test_pallas_rowspan_zslab_fallback_exact():
     """Force the intermediate z-slab regime (n_rows > r_max but nz <= r_max)
     and the whole-box regime (nz > r_max): both must stay exact — the
     z-slab level is what keeps big-scene tiles off the catastrophic
-    whole-box span (PERF.md §2)."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
+    whole-box span."""
     rng = np.random.default_rng(55)
     P, N = 4000, 256
     # photons in a wide flat slab: many (y, x) cells, few z cells
@@ -452,7 +251,7 @@ def test_pallas_rowspan_zslab_fallback_exact():
                                           qargs[3])
     # cell small → boxes span many (z,y) rows; r_max tiny → z-slab / box
     for r_max in (4, 2):
-        L, m, ovf = pg_pallas.gather_radius_pallas_rowspan(
+        L, m, ovf = rg.gather_radius_rowspan(
             *args, 0.15, *qargs, interpret=True, chunk=256,
             r_max=r_max, job_budget=1 << 15,
         )
@@ -463,14 +262,9 @@ def test_pallas_rowspan_zslab_fallback_exact():
 
 
 def test_pallas_rowspan_multiround_exact_and_grad():
-    """Multi-round execution (rounds × job_budget capacity): a job list that
-    overflows ONE round's budget but fits the total capacity must stay
-    exact — including tiles whose jobs straddle a round boundary (partial
-    per-round sums add) — and the custom VJP must match dense AD through
-    the round decomposition."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
+    """Capacity is job_budget × rounds: a job list that overflows ONE
+    budget but fits the total capacity must stay exact, and the custom VJP
+    must match dense AD at that capacity."""
     pp, pa, pw, pv, qp, r2, ns, kd = _rowspan_fixture(seed=77)
     cell = float(jnp.sqrt(r2.max()))
     pm = pg.PhotonMap(p=pp, alpha=pa, wi=pw, valid=pv)
@@ -478,14 +272,14 @@ def test_pallas_rowspan_multiround_exact_and_grad():
 
     # reference single-round run to learn the job count, then shrink the
     # per-round budget below it
-    _, _, ovf_probe = pg_pallas.gather_radius_pallas_rowspan(
+    _, _, ovf_probe = rg.gather_radius_rowspan(
         pp, pa, pw, pv, cell, qp, r2, ns, kd, interpret=True, chunk=256,
         job_budget=8, rounds=1,
     )
     n_jobs = int(ovf_probe) + 8
     b = max(2, n_jobs // 5)  # forces ≥5 rounds worth of jobs
     rounds = -(-n_jobs // b) + 1
-    L, m, ovf = pg_pallas.gather_radius_pallas_rowspan(
+    L, m, ovf = rg.gather_radius_rowspan(
         pp, pa, pw, pv, cell, qp, r2, ns, kd, interpret=True, chunk=256,
         job_budget=b, rounds=rounds,
     )
@@ -498,7 +292,7 @@ def test_pallas_rowspan_multiround_exact_and_grad():
         np.random.default_rng(1).normal(size=qp.shape).astype(np.float32))
 
     def f_mr(alpha, kd_):
-        L, _, _ = pg_pallas.gather_radius_pallas_rowspan(
+        L, _, _ = rg.gather_radius_rowspan(
             pp, alpha, pw, pv, cell, qp, r2, ns, kd_, interpret=True,
             chunk=256, job_budget=b, rounds=rounds,
         )
@@ -521,9 +315,6 @@ def test_rowspan_covered_flag_contract():
     """return_covered: queries in completely-scanned tiles are flagged True
     and match the dense gather exactly; flagged-False queries return
     L = 0 / M = 0. With enough budget every query is covered."""
-    from raytrace_tpu.ops import pallas_gather as pg_pallas
-    from raytrace_tpu.ops import photon_grid as pg
-
     rng = np.random.default_rng(23)
     P, N = 4096, 512
     p = rng.uniform(-4, 4, (P, 3)).astype(np.float32)
@@ -542,7 +333,7 @@ def test_rowspan_covered_flag_contract():
     L_ref, m_ref = pg.gather_radius_dense(
         photons, args[5], args[6], args[7], args[8])
 
-    L, m, ovf, cov = pg_pallas.gather_radius_pallas_rowspan(
+    L, m, ovf, cov = rg.gather_radius_rowspan(
         *args, interpret=True, chunk=128, job_budget=64,
         return_covered=True,
     )
@@ -556,7 +347,7 @@ def test_rowspan_covered_flag_contract():
     assert np.all(np.asarray(L)[~cov] == 0.0)
     assert np.all(np.asarray(m)[~cov] == 0)
 
-    L2, m2, ovf2, cov2 = pg_pallas.gather_radius_pallas_rowspan(
+    L2, m2, ovf2, cov2 = rg.gather_radius_rowspan(
         *args, interpret=True, chunk=128, rounds=4,
         return_covered=True,
     )
@@ -564,3 +355,98 @@ def test_rowspan_covered_flag_contract():
     assert np.asarray(cov2).all()
     np.testing.assert_allclose(np.asarray(L2), np.asarray(L_ref),
                                rtol=2e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Triton-route kernels (interpreter) vs the plain jax.numpy job blocks
+# ---------------------------------------------------------------------------
+
+_KERNEL_CASES = {
+    # query/photon counts off every tile and chunk boundary
+    "ragged": dict(P=1999, N=333),
+    # fewer queries than one tile
+    "single_tile": dict(P=700, N=100),
+    # counts exactly on the tile/chunk boundaries
+    "aligned": dict(P=1024, N=256),
+    "no_valid_photons": dict(P=600, N=200, frac_valid=0.0),
+    # photons piled into a small ball: many jobs per tile
+    "clustered": dict(P=2500, N=300, extent=1.0),
+    # capacity overflow: the incomplete tail must match too
+    "overflow": dict(P=3000, N=500, job_budget=20),
+}
+
+
+def _kernel_case(name):
+    c = dict(frac_valid=0.8, extent=8.0, job_budget=1 << 12)
+    c.update(_KERNEL_CASES[name])
+    rng = np.random.default_rng(sorted(_KERNEL_CASES).index(name) + 100)
+    P, N, ext = c["P"], c["N"], c["extent"]
+    pp = rng.uniform(0, ext, (P, 3)).astype(np.float32)
+    pa = rng.uniform(0, 1, (P, 3)).astype(np.float32)
+    pw = rng.normal(size=(P, 3)).astype(np.float32)
+    pw /= np.linalg.norm(pw, axis=1, keepdims=True)
+    pv = rng.uniform(size=P) < c["frac_valid"]
+    qp = rng.uniform(0, ext, (N, 3)).astype(np.float32)
+    r2 = rng.uniform(0.01, 0.4, N).astype(np.float32) * (ext / 8.0) ** 2
+    ns = rng.normal(size=(N, 3)).astype(np.float32)
+    ns /= np.linalg.norm(ns, axis=1, keepdims=True)
+    kd = rng.uniform(0, 1, (N, 3)).astype(np.float32)
+    cot = rng.normal(size=(N, 3)).astype(np.float32)
+    arrays = tuple(jnp.asarray(x) for x in (pp, pa, pw, pv, qp, r2, ns, kd))
+    cell = float(np.sqrt(r2.max()))
+    return arrays, cell, c["job_budget"], jnp.asarray(cot)
+
+
+def _run_rowspan(impl, arrays, cell, job_budget, alpha=None, kd=None):
+    pp, pa, pw, pv, qp, r2, ns, kd0 = arrays
+    return rg.gather_radius_rowspan(
+        pp, pa if alpha is None else alpha, pw, pv, cell, qp, r2, ns,
+        kd0 if kd is None else kd, impl=impl, interpret=(impl == "pallas"),
+        chunk=256, job_budget=job_budget, return_covered=True)
+
+
+@pytest.mark.parametrize("case", sorted(_KERNEL_CASES))
+def test_rowspan_kernel_matches_plain_forward(case):
+    """Forward: the kernel and the jnp version agree on S·kd, M, the
+    overflow count and the covered flags; covered queries also match the
+    dense oracle."""
+    arrays, cell, budget, _ = _kernel_case(case)
+    L_k, m_k, o_k, c_k = _run_rowspan("pallas", arrays, cell, budget)
+    L_x, m_x, o_x, c_x = _run_rowspan("xla", arrays, cell, budget)
+    assert int(o_k) == int(o_x)
+    np.testing.assert_array_equal(np.asarray(c_k), np.asarray(c_x))
+    np.testing.assert_array_equal(np.asarray(m_k), np.asarray(m_x))
+    np.testing.assert_allclose(np.asarray(L_k), np.asarray(L_x),
+                               rtol=2e-5, atol=1e-6)
+    pp, pa, pw, pv, qp, r2, ns, kd = arrays
+    L_ref, m_ref = pg.gather_radius_dense(
+        pg.PhotonMap(p=pp, alpha=pa, wi=pw, valid=pv), qp, r2, ns, kd)
+    cov = np.asarray(c_k)
+    if case == "overflow":
+        assert int(o_k) > 0 and cov.any() and (~cov).any()
+    else:
+        assert int(o_k) == 0 and cov.all()
+    np.testing.assert_allclose(np.asarray(L_k)[cov], np.asarray(L_ref)[cov],
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(m_k)[cov],
+                                  np.asarray(m_ref)[cov])
+    assert np.all(np.asarray(L_k)[~cov] == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(_KERNEL_CASES))
+def test_rowspan_kernel_matches_plain_vjp(case):
+    """VJP: the chunk-major backward kernel and the jnp transpose give the
+    same d/dalpha and d/dkd."""
+    arrays, cell, budget, cot = _kernel_case(case)
+    pa, kd = arrays[1], arrays[7]
+
+    def loss(impl):
+        return lambda a, k: jnp.sum(
+            _run_rowspan(impl, arrays, cell, budget, alpha=a, kd=k)[0] * cot)
+
+    g_k = jax.grad(loss("pallas"), argnums=(0, 1))(pa, kd)
+    g_x = jax.grad(loss("xla"), argnums=(0, 1))(pa, kd)
+    for a, b in zip(g_k, g_x):
+        assert np.isfinite(np.asarray(a)).all()
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=2e-5, atol=1e-6)
